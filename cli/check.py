@@ -74,9 +74,11 @@ def main():
     args = p.parse_args()
 
     import jax
-    from libstb_tpu.core import agrid
-    from libstb_tpu.models import driver, pyp, sa
-    from libstb_tpu.utils import config
+    from libstb_jax.core import agrid
+    from libstb_jax.models import driver, pyp, sa
+    from libstb_jax.utils import compile_cache, config
+
+    compile_cache.enable()
 
     tcfg = config.from_env(config.TableConfig)
     scfg = config.from_env(config.SamplerConfig)
@@ -196,7 +198,7 @@ def main():
         if kernel == "ars" and args.bcycle and name != "SA":
             # ARS efficiency telemetry (arms.c neval, BASELINE.md row 8):
             # one diagnostic b-step from the final state
-            from libstb_tpu.samplers import hyper
+            from libstb_jax.samplers import hyper
             dt = np.float32
             _, _, nev = hyper.sample_b(
                 jax.random.key(99), out["b"],

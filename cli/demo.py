@@ -4,7 +4,7 @@
 Generates data by CRP simulation, runs the table-indicator sampler with
 optional (b, a) resampling cycles, and reports posterior mean table
 counts (demo.c:284-311 data gen, 405-489 loop, 507-519 report).  Flags
-mirror demo.c:128-218; TPU extras: --chains (ensemble size) and
+mirror demo.c:128-218; extras: --chains (ensemble size) and
 --sampler (TI / CT / CTW, the check.c variants).
 """
 import argparse
@@ -39,9 +39,11 @@ def main():
     args = p.parse_args()
 
     import jax
-    from libstb_tpu.core import agrid
-    from libstb_tpu.models import driver, pyp
-    from libstb_tpu.utils import config, yaps
+    from libstb_jax.core import agrid
+    from libstb_jax.models import driver, pyp
+    from libstb_jax.utils import compile_cache, config, yaps
+
+    compile_cache.enable()
 
     tcfg = config.from_env(config.TableConfig)
     scfg = config.from_env(config.SamplerConfig)

@@ -25,7 +25,10 @@ def main():
                    help="print exact-vs-asymptote differences")
     args = p.parse_args()
 
-    from libstb_tpu.core import stirling
+    from libstb_jax.core import stirling
+    from libstb_jax.utils import compile_cache
+
+    compile_cache.enable()
 
     t = stirling.make(args.N, args.M, args.maxN, args.maxM, args.a,
                       use_asympt=True)

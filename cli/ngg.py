@@ -32,8 +32,10 @@ def main():
 
     import jax
     jax.config.update("jax_enable_x64", True)
-    from libstb_tpu.core import ngg
+    from libstb_jax.core import ngg
+    from libstb_jax.utils import compile_cache
 
+    compile_cache.enable()
     a, M, N, K = args.a, args.M, args.N, args.K
     if args.chains:
         return ngg_workload(args)
@@ -65,7 +67,7 @@ def main():
 def ngg_workload(args):
     """Chain-sharded NGG posterior workload (BASELINE config 5): many
     (n, k) states evaluate the saddle-point family simultaneously, the
-    chain axis sharded over the device mesh (ICI collectives only for
+    chain axis sharded over the device mesh (collectives only for
     the final agreement statistics).  The 10^5-chain scale of the config
     fits one jit program; multi-host runs shard the same program over
     jax.distributed (parallel/distributed.py)."""
@@ -73,8 +75,8 @@ def ngg_workload(args):
 
     import jax
     import jax.numpy as jnp
-    from libstb_tpu.core import ngg
-    from libstb_tpu.parallel import mesh as pmesh
+    from libstb_jax.core import ngg
+    from libstb_jax.parallel import mesh as pmesh
 
     C = args.chains
     mesh = pmesh.chain_mesh()

@@ -28,7 +28,10 @@ def main():
     import jax
     import jax.numpy as jnp
     jax.config.update("jax_enable_x64", True)
-    from libstb_tpu.core import stirling
+    from libstb_jax.core import stirling
+    from libstb_jax.utils import compile_cache
+
+    compile_cache.enable()
 
     N, M, a = args.N, min(args.M, args.N), args.a
 

@@ -5,7 +5,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from libstb_tpu.core import agrid, stirling
+from libstb_jax.core import agrid, stirling
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +93,7 @@ def test_out_of_bounds_no_asympt():
 
 
 def test_ensure_grid_growth_and_quit():
-    from libstb_tpu.utils.yaps import LibstbError
+    from libstb_jax.utils.yaps import LibstbError
     g = agrid.make_grid(32, 16, g=32, dtype=jnp.float64, max_n=256,
                         max_m=64)
     g2 = agrid.ensure_grid(g, 100, 40)
@@ -115,7 +115,7 @@ def test_ensure_grid_growth_and_quit():
 
 
 def test_data_curve_mm_t_equals_n_beyond_m_max():
-    """ADVICE r1 (medium): the MXU route must zero t==n pairs even when
+    """ADVICE r1 (medium): the contraction route must zero t==n pairs even when
     n > m_max instead of gathering Srel(n, m_max)."""
     g = agrid.make_grid(64, 12, g=32, dtype=jnp.float64)
     ns = jnp.array([20, 30])
@@ -157,7 +157,7 @@ def test_sample_a_sparse_million_pairs():
     (round-3 missing #2: the getval capability at hca scale).  The
     streamed curve must match the dense gather route, and the sampler
     must run within bounded memory."""
-    from libstb_tpu.samplers import hyper
+    from libstb_jax.samplers import hyper
     grid = agrid.make_grid(96, 32, g=16)
     rng = np.random.default_rng(4)
     C, P = 4, (1 << 20) + 17                   # non-multiple of chunk
@@ -183,7 +183,7 @@ def test_sample_a_sparse_million_pairs():
 
 def test_grid_tag_report_and_quit():
     """Grid-level S_tag analog (stable.h:137-138)."""
-    from libstb_tpu.utils.yaps import LibstbError
+    from libstb_jax.utils.yaps import LibstbError
 
     g = agrid.make_grid(48, 16, g=16, max_n=64, max_m=24, tag="word-grid")
     assert "word-grid" in g.report()

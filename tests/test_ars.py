@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libstb_tpu.samplers import ars
+from libstb_jax.samplers import ars
 
 
 def _moments(x):

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from libstb_tpu.core import agrid
-from libstb_tpu.models import driver, hpyp, pyp
+from libstb_jax.core import agrid
+from libstb_jax.models import driver, hpyp, pyp
 
 
 def test_invariants():

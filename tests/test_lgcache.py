@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.special import gammaln, digamma as sdigamma
 
-from libstb_tpu.core import lgcache
+from libstb_jax.core import lgcache
 
 
 def test_gammadiff():

@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from libstb_tpu.core import agrid
-from libstb_tpu.models import driver, pyp
+from libstb_jax.core import agrid
+from libstb_jax.models import driver, pyp
 
 
 @pytest.fixture(scope="module")
@@ -257,7 +257,7 @@ def test_driver_grows_undersized_grid(workload):
 def test_hpyp_grows_for_dynamic_level0():
     """HPYP level-0 counts (sums of t1) can exceed any per-category data
     count; the driver must grow the grid to the reachable bound."""
-    from libstb_tpu.models import hpyp
+    from libstb_jax.models import hpyp
     data = pyp.crp_generate(seed=3, n_groups=6, dim=4, n_per_group=20,
                             a=0.5, b=1.0)
     # per-category max is ~20 but level-0 n0 can reach sum_j n[j,i] (~60+)
@@ -372,7 +372,7 @@ def test_ct_maxrel_bound(workload):
 
 
 def test_ti_pairs_vrows_selection_matches_gather():
-    from libstb_tpu.core import stirling
+    from libstb_jax.core import stirling
     """The gather-free V path (StirlingTable.V_rows + compare-reduce
     selection, pyp.ti_pair_m_sel) must reproduce the point-gather path's
     sweep EXACTLY (same keys, same kernel -- only the V lookup route
@@ -411,7 +411,7 @@ def test_ctw_srows_selection_matches_gather():
     pyp.ctw_m_sel) must reproduce the point-gather path exactly up to
     the one-hot-matmul rounding of the dense rows (same keys, same
     kernel)."""
-    from libstb_tpu.core import stirling
+    from libstb_jax.core import stirling
     data = pyp.crp_generate(seed=12, n_groups=6, dim=10, n_per_group=80,
                             a=0.5, b=2.0)
     n_max = int(data.n.max()) + 2

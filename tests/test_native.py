@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libstb_tpu import native
-from libstb_tpu.core import stirling
+from libstb_jax import native
+from libstb_jax.core import stirling
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no native toolchain")

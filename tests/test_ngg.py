@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.special import gammaincc, gamma as _gamma
 
-from libstb_tpu.core import ngg, quadrature
+from libstb_jax.core import ngg, quadrature
 
 A, M = 0.1, 10.0       # the reference's p_a, p_M (ngg_test.c:506)
 
@@ -161,7 +161,7 @@ def test_hmax_bounds_window_quadrature():
     [lo, hi] reproduces the table at small N AND stays accurate at
     (N, K) where the naive full-range quadrature loses the peak."""
     import jax.numpy as jnp
-    from libstb_tpu.core import quadrature
+    from libstb_jax.core import quadrature
     a, M = 0.1, 10.0
     tab = np.asarray(ngg.ngg_table(a, M, 16, 10))
 

@@ -1,13 +1,16 @@
 """Mesh sharding, R-hat/ESS diagnostics, and the multichip dry run on the
 8-device virtual CPU mesh (the reference has no distributed layer --
-SURVEY.md §2.3 -- so these tests cover the TPU-native scaling design)."""
+SURVEY.md §2.3 -- so these tests cover this engine's scaling design)."""
+import os
 import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from libstb_tpu.parallel import mesh as pmesh
+from libstb_jax.parallel import mesh as pmesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_chain_mesh_all_devices():
@@ -51,7 +54,7 @@ def test_ess_iid_vs_correlated():
 
 
 def test_dryrun_multichip_virtual():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     try:
         import __graft_entry__ as ge
         ge.dryrun_multichip(len(jax.devices()))
@@ -60,7 +63,7 @@ def test_dryrun_multichip_virtual():
 
 
 def test_entry_compiles():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     try:
         import __graft_entry__ as ge
         fn, args = ge.entry()

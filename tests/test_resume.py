@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from libstb_tpu.core import agrid
-from libstb_tpu.models import driver, pyp
-from libstb_tpu.utils import checkpoint
+from libstb_jax.core import agrid
+from libstb_jax.models import driver, pyp
+from libstb_jax.utils import checkpoint
 
 
 def test_gibbs_checkpoint_resume(tmp_path):

@@ -1,4 +1,4 @@
-"""Explicit-SA oracle vs the TPU-scale samplers (check.c's multi-sampler
+"""Explicit-SA oracle vs the scale samplers (check.c's multi-sampler
 agreement methodology, check.c:98 / SURVEY.md §4.4): the explicit
 seating-arrangement sampler is the exact baseline; HSA (its histogram
 collapse) and CT must land on the same posterior mean table counts."""
@@ -6,8 +6,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from libstb_tpu.core import agrid
-from libstb_tpu.models import driver, pyp, sa
+from libstb_jax.core import agrid
+from libstb_jax.models import driver, pyp, sa
 
 
 def test_sa_invariants():

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libstb_tpu.core import agrid
-from libstb_tpu.samplers import hyper
+from libstb_jax.core import agrid
+from libstb_jax.samplers import hyper
 
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from libstb_tpu.core import agrid
-from libstb_tpu.samplers import hyper, slice as slicemod
+from libstb_jax.core import agrid
+from libstb_jax.samplers import hyper, slice as slicemod
 
 
 def _run_chain(step, x0, key, iters):
@@ -142,7 +142,7 @@ def test_sample_b_ars_matches_slice():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from libstb_tpu.samplers import hyper
+    from libstb_jax.samplers import hyper
 
     C = 2048
     N = jnp.asarray([200.0, 150.0])
@@ -166,8 +166,8 @@ def test_sample_a_ars_matches_slice():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from libstb_tpu.core import agrid
-    from libstb_tpu.samplers import hyper
+    from libstb_jax.core import agrid
+    from libstb_jax.samplers import hyper
 
     rng = np.random.default_rng(0)
     C, P = 1024, 10

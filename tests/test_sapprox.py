@@ -4,7 +4,7 @@ from fractions import Fraction
 import numpy as np
 import jax.numpy as jnp
 
-from libstb_tpu.core import sapprox
+from libstb_jax.core import sapprox
 from tests.test_stirling import exact_logS
 
 

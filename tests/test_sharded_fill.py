@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-from libstb_tpu.core import agrid
+from libstb_jax.core import agrid
 
 
 def test_sharded_grid_matches_local():

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import scipy.special as sp
 
-from libstb_tpu.core import special
+from libstb_jax.core import special
 
 
 XS = np.concatenate([
@@ -20,7 +20,7 @@ def test_digamma_f64():
 
 
 def test_digamma_f32():
-    # XLA's f32 log is only ~1e-4-accurate (on both CPU and TPU backends),
+    # XLA's f32 log is only ~1e-4-accurate (XLA's CPU and GPU backends alike),
     # which bounds f32 digamma accuracy; the pure-arithmetic part of the
     # computation is exact to f32 roundoff (verified in f64 above).
     got = np.asarray(special.digamma(XS.astype(np.float32)))

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libstb_tpu.core import sympoly
+from libstb_jax.core import sympoly
 
 
 def esp_exact(x, h):

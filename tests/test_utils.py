@@ -1,12 +1,14 @@
 """utils: checkpoint round-trip, metrics, config, yaps facade."""
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libstb_tpu.utils import checkpoint, config, metrics, yaps
+from libstb_jax.utils import checkpoint, config, metrics, yaps
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -75,3 +77,67 @@ def test_yaps_sink_and_quit():
     finally:
         yaps.set_sink(None)
     assert got == ["hello 7", "fatal x"]
+
+
+def test_device_timer_waits_for_outputs():
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return {"y": x + 1.0, "z": (x * 2.0,)}
+
+    dt = metrics.device_timer(fn, jnp.ones((8,)), reps=3)
+    assert dt > 0 and len(calls) == 4          # warm call + 3 timed
+
+
+def test_compile_cache_env_dir_is_jax_own(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it itself and the
+    helper sets no other directory."""
+    from libstb_jax.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.enable() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_in_checkout(monkeypatch):
+    from libstb_jax.utils import compile_cache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        got = compile_cache.enable()
+        assert got == os.path.join(repo, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == got
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+def test_compile_cache_lands_in_env_dir(tmp_path):
+    """A script that calls enable() with the variable set writes its
+    compiled programs there."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import jax, jax.numpy as jnp; "
+            "from libstb_jax.utils import compile_cache; "
+            "compile_cache.enable(); "
+            "jax.config.update('jax_persistent_cache_min_compile_time_secs',"
+            " 0); "
+            "jax.block_until_ready(jax.jit(lambda x: x * 3.0 + 1.0)"
+            "(jnp.ones(4)))")
+    env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(tmp_path),
+               JAX_PLATFORMS="cpu")
+    subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                   check=True, timeout=300)
+    assert os.listdir(tmp_path)
+
+
+def test_distributed_init_without_coordinator(monkeypatch):
+    from libstb_jax.parallel import distributed
+
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    assert distributed.init() is False
+    assert not distributed.is_distributed()

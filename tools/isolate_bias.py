@@ -48,8 +48,11 @@ def main():
     seed, iters, n_per, runs, chains = 7, 800, 40, 8, 96
     demo = build_reference()
 
-    from libstb_tpu.core import agrid
-    from libstb_tpu.models import driver, pyp
+    from libstb_jax.core import agrid
+    from libstb_jax.models import driver, pyp
+    from libstb_jax.utils import compile_cache
+
+    compile_cache.enable()
 
     for name, extra, bcyc, acyc in [
             ("C sweep-only", [], 0, 0),

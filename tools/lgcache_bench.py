@@ -3,12 +3,13 @@
 
 The reference ships a scalar sec/call comparison of its gammadiff/psidiff
 variants against raw lgamma/digamma differences under ``#ifdef MAINTEST``
-(/root/reference/lib/lgamma.c:242-310, 5e6 reps).  This is the TPU-native
+(lib/lgamma.c:242-310, 5e6 reps).  This is the vectorised
 analog: each variant is evaluated on a (BATCH,) vector of (n, alpha)
 pairs, K times chained inside one jit (each rep feeds the previous
 result's low bits back into alpha so the chain cannot be collapsed), and
 the table reports seconds per ELEMENT evaluation -- the comparable unit,
-since on TPU one "call" is a lane of a vector op, not a libm call.
+since on the device one "call" is an element of a vector op, not a libm
+call.
 
 Variants (reference counterparts in lib/lgamma.c):
   gammadiff   fused lgamma-diff w/ exact small-n products (lgamma.c:143-190)
@@ -20,12 +21,12 @@ Variants (reference counterparts in lib/lgamma.c):
                  build once, amortised over GATHERS_PER_BUILD gathers)
 
 Usage:  python tools/lgcache_bench.py [--batch 1048576] [--reps 32]
-Writes a markdown-ish table to stdout; run ALONE (2-vCPU box).
+Writes a markdown-ish table to stdout; every timing waits for the device
+(metrics.device_timer).
 """
 import argparse
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -43,14 +44,15 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from libstb_tpu.core import lgcache
-    from libstb_tpu.utils import metrics
+    from libstb_jax.core import lgcache
+    from libstb_jax.utils import compile_cache, metrics
+
+    compile_cache.enable()
 
     B, K = args.batch, args.reps
     rng = np.random.default_rng(0)
     alpha = jnp.asarray(rng.uniform(0.1, 1.0, B), jnp.float32)
     nvec = jnp.asarray(rng.integers(1, 200, B), jnp.int32)
-    oh = metrics.rpc_overhead()
 
     def chained(fn):
         @jax.jit
@@ -71,13 +73,14 @@ def main():
         "qval": lambda n, al: lgcache.qval(al * 0.9, n),
     }
 
-    print(f"# lgcache micro-bench: backend={jax.default_backend()}, "
+    d = jax.devices()[0]
+    print(f"# lgcache micro-bench: device={d.platform} {d.device_kind}, "
           f"batch={B}, reps={K} (lgamma.c:242-310 analog)")
     print(f"| variant | sec/call | Gcalls/s |")
     print(f"|---|---|---|")
     rows = {}
     for name, fn in variants.items():
-        dt = metrics.device_timer(chained(fn), alpha, overhead=oh) / (B * K)
+        dt = metrics.device_timer(chained(fn), alpha) / (B * K)
         rows[name] = dt
         print(f"| {name} | {dt:.3g} | {1e-9 / dt:.2f} |")
 
@@ -97,14 +100,14 @@ def main():
         c, _ = jax.lax.scan(body, jnp.float32(0), None, length=K)
         return c
 
-    dt = metrics.device_timer(gather_run, alpha, overhead=oh) / (B * K * G)
+    dt = metrics.device_timer(gather_run, alpha) / (B * K * G)
     rows["gcache-gather"] = dt
     print(f"| gcache-gather (x{G} reuse) | {dt:.3g} | {1e-9 / dt:.2f} |")
     sys.stdout.flush()
 
 
 def _digamma_raw(n, al):
-    from libstb_tpu.core import special
+    from libstb_jax.core import special
     return special.digamma(n.astype(al.dtype) + al) - special.digamma(al)
 
 
